@@ -20,7 +20,7 @@ import struct
 
 import numpy as np
 
-# ---- sim-drift tripwire (VERDICT r4 weak #6): the "statement-exact twin"
+# ---- sim-drift tripwire: the "statement-exact twin"
 # premise silently rots if lerc.js is edited without a matching sim edit.
 # Pin the binding's content hash; conformance tests verify it BEFORE any
 # decode runs. After editing BOTH files, refresh with:

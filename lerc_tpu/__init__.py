@@ -1,6 +1,6 @@
-"""lerc_tpu: a TPU-native LERC (Limited Error Raster Compression) engine.
+"""lerc_tpu: a JAX-native LERC (Limited Error Raster Compression) engine.
 
-Built from scratch in JAX/XLA/Pallas with full wire compatibility with the
+Built from scratch in JAX/XLA with full wire compatibility with the
 reference Esri/lerc C++ library (codec Lerc1 and Lerc2 v1-v6).
 
 The numpy-facing API mirrors the reference `lerc` Python package:

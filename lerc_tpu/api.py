@@ -1,5 +1,5 @@
 """Public numpy-facing API, drop-in compatible with the reference `lerc`
-Python package (/root/reference/OtherLanguages/Python/lerc/_lerc.py).
+Python package (lerc/OtherLanguages/Python/lerc/_lerc.py).
 
 Shape convention: [nBands, nRows, nCols, nDepth] with 2D/3D/4D auto-detect
 (`getLercShape`). All functions return `(result, ...)` tuples with result 0

@@ -1,6 +1,6 @@
 """BitStuffer2 wire format: lossless bit-packing of uint32 arrays.
 
-Wire format (matches /root/reference/src/LercLib/BitStuffer2.{h,cpp}):
+Wire format (matches lerc/src/LercLib/BitStuffer2.{h,cpp}):
 
   header byte: bits 0-4 = numBits, bit 5 = LUT mode,
                bits 6-7 = element-count width code (0 -> 4 bytes, else 3 - n)
@@ -15,7 +15,8 @@ Two packing orders exist on the wire:
     tail bytes of the final word squeezed out (BitStuffer2.cpp:292-348)
 
 All pack/unpack paths here are vectorized numpy (packbits/unpackbits); the
-device-side Pallas kernels in lerc_tpu/ops implement the same layout.
+device kernels in lerc_tpu/ops implement the v3+ layout (pre-v3 blobs
+decode on the host).
 """
 from __future__ import annotations
 

@@ -38,6 +38,11 @@ from .bitmask import bits_to_bool, bool_to_bits, mask_size_bytes
 from .lerc2_decode import DecodedBand
 
 
+class DeviceUnsupported(ValueError):
+    """The device encoder does not handle this band (configuration or
+    capacity); the caller encodes it with the host codec instead."""
+
+
 def _round_cap(n: int) -> int:
     """Round capacity up (pow2) to limit recompilation across sizes."""
     cap = 1 << max(12, (n - 1).bit_length())
@@ -68,7 +73,7 @@ def encode_band_device(
 
     all_valid = mask is None or bool(np.asarray(mask).all())
     if not supports_encode(dt, max_z_error, d, all_valid):
-        raise ValueError("configuration not supported by the device encoder")
+        raise DeviceUnsupported("configuration not supported by the device encoder")
     if all_valid:
         num_valid = h * w
         mask_np = np.ones((h, w), dtype=bool)
@@ -137,7 +142,7 @@ def encode_band_device(
         zmax_vec = np.asarray(zmax_vec, dtype=np.float64)
     total = int(total)
     if stream is not None and total > cap:
-        raise ValueError("device encode capacity exceeded")
+        raise DeviceUnsupported("device encode capacity exceeded")
 
     head = hdr.HeaderInfo(
         version=version, n_rows=h, n_cols=w, n_depth=d, num_valid_pixel=num_valid,
@@ -626,7 +631,7 @@ def _decode_huffman_band_device(src, pos, head, mode, sbits, mask=None):
     by the native lengths-only scan (lerc_huffman_group_offsets, a
     multi-symbol-LUT pointer chase several times faster than full host
     decode) and the heavy symbol/un-delta work still runs device-parallel
-    -- so plain decode() of a foreign 8-bit blob uses the TPU.
+    -- so plain decode() of a foreign 8-bit blob uses the device.
 
     With `mask` (numpy bool [H, W], from the wire mask section), symbols
     are rank-compacted (direct: one run; delta: per depth plane), so the
@@ -848,7 +853,7 @@ def decode_band_device(
     fetching it to host numpy (const-fill / empty-mask blobs still return
     host arrays). Lets callers overlap or skip the raster egress, and
     lets the benchmark report a device-only throughput separate from the
-    host-transfer-bound end-to-end figure (VERDICT r4 item 5)."""
+    host-transfer-bound end-to-end figure."""
     if not native.available():
         return None
     src = memoryview(buf)
@@ -857,6 +862,10 @@ def decode_band_device(
     except ValueError:
         return None
     if head.micro_block_size != 8:
+        return None
+    if head.version < 3:
+        # v2 bit-stuffs with the pre-v3 tail layout, which the device
+        # extraction does not implement: host path
         return None
     if (head.dt == DataType.DOUBLE and head.max_z_error == 0
             and not head.try_huffman_flt()):

@@ -1,6 +1,6 @@
 """Canonical Huffman coding for 8-bit LERC data (codec v2+).
 
-Wire format (matches /root/reference/src/LercLib/Huffman.{h,cpp}):
+Wire format (matches lerc/src/LercLib/Huffman.{h,cpp}):
 
   code table:
     int32 huffmanVersion (4), int32 size (256), int32 i0, int32 i1

@@ -1,6 +1,6 @@
 """Legacy Lerc1 decoder (decode-only, float-only), wire format "CntZImage ".
 
-Mirrors /root/reference/src/LercLib/Lerc1Decode/CntZImage.cpp and
+Mirrors lerc/src/LercLib/Lerc1Decode/CntZImage.cpp and
 BitStuffer.cpp. A blob is:
 
   "CntZImage "  int32 version(11)  int32 type(8=CNT_Z)

@@ -1,8 +1,8 @@
 """Single-band Lerc2 blob decoder (codec v1..v6), host reference path.
 
-Mirrors the semantics of Lerc2::Decode (/root/reference/src/LercLib/
+Mirrors the semantics of Lerc2::Decode (lerc/src/LercLib/
 Lerc2.cpp:577-694) and ReadTiles/ReadTile (Lerc2.cpp:1672-2230), with
-vectorized numpy per-block inner loops. The hot batched/TPU decode path
+vectorized numpy per-block inner loops. The hot batched/device decode path
 builds on the same primitives in lerc_tpu/ops.
 
 Output data layout is [nRows, nCols, nDepth] (band-interleaved-by-pixel,

@@ -1,6 +1,6 @@
 """Byte-run RLE codec used for the validity-mask section of a LERC blob.
 
-Wire format (matches /root/reference/src/LercLib/RLE.{h,cpp}):
+Wire format (matches lerc/src/LercLib/RLE.{h,cpp}):
   stream := { int16_le count, payload }* , int16_le -32768 (EOF)
   count > 0  -> literal run: `count` verbatim bytes follow
   count < 0  -> repeat run: one byte follows, repeated `-count` times

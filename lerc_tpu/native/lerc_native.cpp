@@ -1,15 +1,15 @@
-// Native runtime helpers for the TPU LERC engine.
+// Native runtime helpers for the JAX LERC engine.
 //
 // The Lerc2 tile stream is a serial byte-cursor format: each micro-block
 // record's length depends on its header bytes, so finding record offsets is
 // an inherently sequential scan (Lerc2.cpp:1672-1713). Everything AFTER the
 // scan (bit-unpack, dequantize, scatter) is embarrassingly parallel and runs
-// on the TPU; this scanner runs at ~1 ns/record on the host and feeds the
-// device kernels with per-record descriptors.
+// on the device; this scanner runs on the host and feeds the device kernels
+// with per-record descriptors.
 //
 // Build: g++ -O3 -shared -fPIC -o liblerc_native.so lerc_native.cpp
 //
-// Wire-format constants follow /root/reference/src/LercLib (BitStuffer2,
+// Wire-format constants follow lerc/src/LercLib (BitStuffer2,
 // Lerc2 ReadTile); implementation is original.
 
 #include <algorithm>

@@ -37,8 +37,9 @@ def _exact_f32_scale_back(qv, offset_f32, zmax_f32_r, inv_limbs, inv_bexp,
     bit-for-bit the host/reference decoder.
 
     qv: [N, B] u32 quants; offset_f32: [N] f32; zmax_f32_r: [N, 1] f32.
-    Returns (z [N, B] f32, (pre-clamp hi, lo) for depth-diff chains, ok).
-    ok False = a sum left the normal-f64 range (callers fall back)."""
+    Returns (z [N, B] f32, (pre-clamp hi, lo) for depth-diff chains,
+    ok [N]). ok[i] False = a sum of record i left the normal-f64 range
+    (callers fall back)."""
     from . import device_softf64 as sf
 
     ph, pl = sf.mul_u32_scalar(qv.astype(jnp.uint32), inv_limbs, inv_bexp,
@@ -53,7 +54,7 @@ def _exact_f32_scale_back(qv, offset_f32, zmax_f32_r, inv_limbs, inv_bexp,
     # monotone, so (float)min(z, zMax) == min((float)z, zMax) bit-for-bit;
     # the where keeps std::min's exact tie/NaN pick (z on ties, z if NaN)
     z = jnp.where(zmax_f32_r < z32, zmax_f32_r, z32)
-    return z, (zh, zl), jnp.all(ok)
+    return z, (zh, zl), jnp.all(ok, axis=1)
 
 
 @functools.partial(
@@ -79,8 +80,9 @@ def decode_tiles_fast(
     dense window; header parse, payload alignment and value extraction
     are then elementwise (dynamic lane roll composed from static rolls,
     static-per-nb extraction chain). Returns (img [H, W, D] native
-    dtype -- [nTiles, H, W, D] when n_tiles > 1 -- index_ok, fits).
-    Requires H, W multiples of mb.
+    dtype -- [nTiles, H, W, D] when n_tiles > 1 -- index_ok, fits), fits
+    being one flag per tile ([nTiles]) when n_tiles > 1, so that a caller
+    can send only the unfit tiles elsewhere. Requires H, W multiples of mb.
 
     With `mask`, records hold values compacted to the valid positions;
     after extraction a batched one-hot expand routes value rank[p] back
@@ -140,7 +142,7 @@ def decode_tiles_fast(
 
     # ---- per-record window via overlapping stride-S rows.
     # A naive [2, 128]-row gather per record reads 1 KB for a ~100 B
-    # record (9x amplification; measured 13 ms of a 23 ms decode on v5e).
+    # record (9x amplification).
     # Instead materialize V[j] = words[S*j : S*j+128] (128/S x the stream,
     # one sequential write), so every record's span fits ONE gathered row
     # (sorted indices) and the lane roll is log2(S) static steps over 128
@@ -262,17 +264,17 @@ def decode_tiles_fast(
     # static-per-nb select chain: eff_nb has <= eff_cap distinct values,
     # and for a FIXED nb every value's word index and shift are
     # compile-time constants, so each variant is elementwise slices +
-    # shifts and the variants fuse into one pass over the windows
-    # (measured 2.3x faster than the one-hot MXU dot on v5e, with no bf16
-    # conversion traffic).
+    # shifts and the variants fuse into one pass over the windows, with no
+    # bf16 conversion traffic (speed against the one-hot dot not measured
+    # on the H100).
     eff_nb = jnp.where(mode == 0, 8 * size_t, nb)
-    lut_unfit = jnp.bool_(False)
+    lut_unfit = jnp.zeros(n_rec, bool)  # per record
     if 0 < nb_cap <= 16:
         # explicit narrow cap (production hot path): static chain; see the
         # encode-side note on the compile-time tradeoff. LUT records need
         # dynamic (lut_bytes * 8)-bit base offsets the static chain cannot
         # express: flag them unfit (callers rerun on the uncapped variant).
-        lut_unfit = is_lut.any()
+        lut_unfit = is_lut
         winx = jnp.concatenate([win, jnp.zeros((n_rec, 1), jnp.uint32)], axis=1)
         val = jnp.zeros((n_rec, bs), jnp.uint32)
         for nbx in range(1, eff_cap + 1):
@@ -288,7 +290,7 @@ def decode_tiles_fast(
             cand = jnp.stack(vals, axis=1)
             val = jnp.where(eff_nb[:, None] == nbx, cand, val)
     else:
-        # wide fallback (nb up to 31 + 4-byte raw): one-hot MXU routing --
+        # wide fallback (nb up to 31 + 4-byte raw): one-hot matmul routing --
         # a 31-variant static chain blows up compile time
         win_n = jnp.concatenate(  # win shifted one word (the m_idx+1 selection)
             [win[:, 1:], jnp.zeros((n_rec, 1), jnp.uint32)], axis=1
@@ -338,20 +340,17 @@ def decode_tiles_fast(
             val = jnp.where(is_lut[:, None], val2, val)
             # a LUT area + indices overflowing the window means wrong bits
             need_w = (lut_bytes * 8 + bs * nbits_lut + 31) >> 5
-            lut_unfit = jnp.any(is_lut & (need_w > pw - 1))
+            lut_unfit = is_lut & (need_w > pw - 1)
         else:
             bitpos = jnp.arange(bs, dtype=jnp.int32)[None, :] * eff_nb[:, None]
             val = extract(bitpos, eff_nb)
 
     if mask is not None:
         # expand compacted values back to block positions via the log-shift
-        # network (round 5): the compaction routing inverted, 6 static
-        # rolls + selects -- ~10x fewer per-element ops than the previous
-        # 64-step rank select chain (itself ~7x over the batched one-hot
-        # matmul and ~80x over take_along_axis on v5e). make_expander
-        # barriers its outputs, which also prevents the select-chain-era
-        # pathology of XLA refusing the expansion into each dequant
-        # consumer (measured 36-55 ms vs ~13 ms without a barrier).
+        # network: the compaction routing inverted, 6 static rolls +
+        # selects -- ~10x fewer per-element ops than a 64-step rank select
+        # chain. make_expander barriers its outputs so XLA does not fuse
+        # (and recompute) the expansion into each dequant consumer.
         from .device_encode import make_expander
 
         (val,) = make_expander(vb_r)(val)
@@ -359,7 +358,7 @@ def decode_tiles_fast(
     # per-record clamp vector: tile t's [D] ranges repeat over its blocks
     zmax_t = z_max_vec.reshape(n_tiles, 1, d) if n_tiles > 1 else z_max_vec.reshape(1, 1, d)
     m2 = mode[:, None]
-    sf_ok = jnp.bool_(True)
+    sf_ok = jnp.ones(n_rec, bool)  # per record
     if not is_int:
         raw_f = jax.lax.bitcast_convert_type(val, jnp.float32)
         off2 = offset[:, None]
@@ -453,11 +452,12 @@ def decode_tiles_fast(
         # points at bytes that are not the records it claims (or the
         # stream was tampered with).
         index_ok = index_ok & ~is_lut.any()
-    if always_fits:
-        fits = jnp.bool_(True)
-    else:
-        fits = ~jnp.any(((mode == 0) | (mode == 1)) & (eff_nb > eff_cap))
-    fits = fits & ~lut_unfit & sf_ok
+    rec_fits = ~lut_unfit & sf_ok
+    if not always_fits:
+        rec_fits = rec_fits & ~(((mode == 0) | (mode == 1)) & (eff_nb > eff_cap))
+    fits = rec_fits.reshape(n_tiles, rec_per_tile).all(axis=1)
+    if n_tiles == 1:
+        fits = fits[0]
     return img, index_ok, fits
 
 
@@ -466,8 +466,8 @@ def _unpack_records(stream, payload_pos, num_bits, max_vals: int):
 
     stream: [S] uint32 (byte values), payload_pos: absolute byte offsets.
     Value v's bits [v*nb, v*nb+nb) span at most 5 bytes; assemble them with
-    five flat gathers and word-level shifts (keeps shapes 2D; avoids TPU
-    lane padding of bit-granular tensors).
+    five flat gathers and word-level shifts (keeps shapes 2D; no
+    bit-granular tensors).
     """
     nb_u = num_bits[:, None].astype(jnp.uint32)
     bitpos = jnp.arange(max_vals, dtype=jnp.int32)[None, :] * num_bits[:, None]
@@ -584,6 +584,7 @@ def decode_tiles(
                 jnp.where(stuffish[:, None], qv, 0),
                 jnp.where(stuffish, offset, jnp.float32(0)), zmax_r,
                 inv_limbs, inv_bexp)
+            sf_ok = jnp.all(sf_ok)
         else:
             z_stuff = jnp.minimum(off2 + qv.astype(jnp.float32) * inv_scale, zmax_r)
         z = jnp.where(
@@ -732,7 +733,7 @@ def decode_tiles_f64(
     """Lossy float64 tiling decode, BIT-EXACT vs the reference's f64
     arithmetic (Lerc2.h ScaleBack: z = zMin + q * invScale, separately
     rounded mul and add, then std::min(z, zMax)) via the softfloat
-    kernels in device_softf64 -- pure u32 ops, identical on CPU and TPU.
+    kernels in device_softf64 -- pure u32 ops, identical on every backend.
 
     Returns (data_hi [H, W, D] u32, data_lo, ok). ok False means some
     dequantized sum left the normal-f64 range (host fallback); callers

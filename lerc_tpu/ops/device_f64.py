@@ -1,6 +1,6 @@
 """Device-side Lerc2 tile encoding for float64 via double-single arithmetic.
 
-TPUs have no fast f64, so f64 values travel as NORMALIZED two-float pairs
+Written for an accelerator without fast f64: f64 values travel as NORMALIZED two-float pairs
 (hi = f32(x), lo = f32(x - hi), split exactly on host) plus their raw bit
 patterns (2 x u32) for the wire. Quantization runs in double-single
 (~2^-45 relative accuracy: Knuth TwoSum / Veltkamp-split Dekker products),
@@ -123,8 +123,7 @@ def encode_tiles_f64(
     if not aligned_all_valid:
         # log-shift compaction (valid positions -> rank slots); routing
         # masks built once from the mask and reused across depths and
-        # value arrays (see device_encode.make_compactor: ~free on v5e
-        # vs ~3 ms one-hot dot / ~42 ms take_along_axis per 65K records)
+        # value arrays (see device_encode.make_compactor)
         from .device_encode import make_compactor
 
         _compact_u32 = make_compactor(vb)

@@ -1,7 +1,9 @@
 """Exact softfloat float64 arithmetic on u32 bit-pattern pairs.
 
-TPUs have no native f64, and double-single (2xf32, ~49-bit) arithmetic
-cannot reproduce the reference decoder bit-for-bit. The lossy-f64 tiling
+Written for an accelerator without native f64; double-single (2xf32,
+~49-bit) arithmetic cannot reproduce the reference decoder bit-for-bit.
+(The H100 has native f64; whether native x64 replaces this is an open
+design question.) The lossy-f64 tiling
 dequantization is only three operations per pixel --
 
     z = zMin + quant * invScale        (Lerc2.h ScaleBack, one rounding
@@ -9,7 +11,7 @@ dequantization is only three operations per pixel --
 
 -- so this module implements exactly those as IEEE-754 round-to-nearest-
 even integer algorithms over (hi, lo) uint32 limb pairs. Every op is pure
-u32 arithmetic, so results are identical on the CPU and TPU backends and
+u32 arithmetic, so results are identical on the CPU and GPU backends and
 the CPU test suite's bitwise checks against numpy float64 carry over to
 the device.
 

@@ -15,8 +15,8 @@ halo-free). Here that becomes a first-class SPMD pipeline:
     index (sizes -> exclusive scan -> offsets), the "ragged all-gather"
     assembly step
 
-Communication rides XLA collectives (ICI within a slice, DCN across
-hosts); there is no custom transport.
+Communication rides XLA collectives (NVLink between the GPUs of a host,
+the network across hosts); there is no custom transport.
 """
 from __future__ import annotations
 
@@ -67,7 +67,7 @@ def _encode_tiles_sharded(
     starts [T, nRec8], z_mins/z_maxs [T, D] sharded, global_min/max [D] and
     all_sizes/all_mbs/all_zmins/all_zmaxs [T, ...] replicated).
 
-    Full-strength per-tile encode (VERDICT r1 item 7): LUT block mode on,
+    Full-strength per-tile encode: LUT block mode on,
     and the 16x16 micro-block retrial evaluated per tile with the
     reference's gates (Lerc2.cpp:333-357) -- both variants are encoded
     and the smaller stream selected elementwise (no data-dependent
@@ -216,6 +216,7 @@ class MosaicEncoder:
         self.np_dtype = np.dtype(dtype)
         self.d = n_depth
         self.version = version
+        self.tiles_per_device: dict[str, int] = {}
         n_rec = (-(-tile_h // 8)) * (-(-tile_w // 8)) * n_depth
         raw = tile_h * tile_w * DT_SIZE[self.dt] * n_depth + n_rec * 12 + 4096
         self.cap = 1 << (raw - 1).bit_length()
@@ -379,8 +380,12 @@ class MosaicEncoder:
             mbs_np = np.asarray(all_mbs)
             zmins_np = np.asarray(all_zmins, dtype=np.float64)
             zmaxs_np = np.asarray(all_zmaxs, dtype=np.float64)
+        # where this band's tiles ran: {device: tiles}, for callers that
+        # check the mesh really spread the work
+        self.tiles_per_device = {
+            str(sh.device): int(sh.data.shape[0]) for sh in streams.addressable_shards}
         # payload bytes: read ONLY this process's addressable shards; with
-        # multiple processes, one ragged gather over DCN assembles the rest
+        # multiple processes, one ragged gather across hosts assembles the rest
         # (Lerc.cpp:130-176 band-ordered concat semantics, distributed)
         stream_parts = _addressable_tile_rows(streams)
         starts_parts = _addressable_tile_rows(starts)
@@ -550,7 +555,7 @@ def _decode_tiles_device_batched(info, views, layouts, wanted, mesh=None):
     """Decode the `wanted` mosaic tiles on device, BATCHED: every
     (tile, band) unit flattens into one record axis per micro-block group
     so a 256-tile mosaic issues O(1) dispatches instead of a Python loop
-    with a fetch per tile (VERDICT r2 weak item 3). Unit counts pad to
+    with a fetch per tile. Unit counts pad to
     powers of two (last unit replicated) to bound XLA recompiles across
     mosaics.
 
@@ -709,22 +714,47 @@ def _decode_tiles_device_batched(info, views, layouts, wanted, mesh=None):
             tile_h, tile_w, d, hd.dt, hd.version,
             mask=mask_arg, mb=mb, n_tiles=n_pad, enable_lut=True, **inv_kw,
         )
-        if inv_kw and not bool(np.asarray(fits)):
-            # rare softfloat range trip: f32 dequant (within maxZError)
-            imgs, idx_ok, fits = device_decode.decode_tiles_fast(
-                stream_dev, sa, jnp.float32(hd.max_z_error), zmax_arg,
-                tile_h, tile_w, d, hd.dt, hd.version,
-                mask=mask_arg, mb=mb, n_tiles=n_pad, enable_lut=True,
-            )
         if not bool(np.asarray(idx_ok)):
             raise ValueError(
                 "mosaic: record-offset index inconsistent with stream "
                 f"(micro-block {mb} group)"
             )
+        # per-unit fits: a unit holding a record wider than the kernel's
+        # window (16x16 records above 11 bits) or a softfloat range trip
+        # is left out and takes the per-tile path; the others keep theirs
+        fits_h = np.asarray(fits).reshape(-1)
         imgs_h = np.asarray(imgs)  # ONE fetch per group
+        if n_pad == 1:  # decode_tiles_fast drops the tile axis for one tile
+            imgs_h = imgs_h[None]
         for i, u in enumerate(group):
-            out[u] = imgs_h[i]
+            if fits_h[i]:
+                out[u] = imgs_h[i]
+        _count_placement(imgs, fits_h[:n_real], n_pad)
     return out
+
+
+def _count_placement(imgs, fits_real: np.ndarray, n_pad: int) -> None:
+    """Add the units a batched decode kept to ROUTES: ("decode", "device")
+    in all, ("mosaic_units", <device>) for the device that holds each
+    unit's decoded pixels, and ("mosaic_unfit", "units") for those left to
+    the per-tile path."""
+    from ..codec.encode_orchestrator import ROUTES
+
+    def add(key, n):
+        if n:
+            ROUTES[key] += int(n)
+
+    n_real = fits_real.size
+    add(("decode", "device"), fits_real.sum())
+    add(("mosaic_unfit", "units"), n_real - fits_real.sum())
+    if n_pad == 1:  # no tile axis: one unit on one device
+        add(("mosaic_units", str(next(iter(imgs.devices())))), fits_real.sum())
+        return
+    for sh in imgs.addressable_shards:
+        sl = sh.index[0]
+        lo = 0 if sl.start is None else int(sl.start)
+        hi = n_pad if sl.stop is None else int(sl.stop)
+        add(("mosaic_units", str(sh.device)), fits_real[lo:min(hi, n_real)].sum())
 
 
 def _decode_tile_blob(view, n_bands: int) -> np.ndarray:
@@ -732,18 +762,38 @@ def _decode_tile_blob(view, n_bands: int) -> np.ndarray:
     try the device path first (decode_band_device: native record scan +
     device kernels incl. the exact-softfloat f64 dequant -- how DOUBLE
     mosaic tiles stay on device), then the host decoder."""
+    from ..codec.encode_orchestrator import ROUTES
     from ..codec.orchestrator import decode_blob
 
     if n_bands == 1:
-        try:
-            from ..codec.device_codec import decode_band_device
+        from ..codec.device_codec import decode_band_device
 
+        try:
             out = decode_band_device(view)
-            if out is not None:
-                return np.asarray(out.data)[None]
-        except Exception:
-            pass  # native scanner absent or unsupported layout: host path
-    return decode_blob(view).data
+        except ValueError:
+            out = None  # corrupt tile: the host decoder raises its own error
+        if out is not None:
+            ROUTES["decode", "device"] += 1
+            return np.asarray(out.data)[None]
+    return decode_blob(view).data  # counts its bands' routes itself
+
+
+def _unit_pixels(decoded, host_tiles, views, layouts, t, b, n_bands, tile_h, tile_w):
+    """Pixels of unit (t, b): the batched device decode's, else a constant
+    fill (counted as ("decode", "const") in ROUTES), else the per-tile
+    path's, decoded once per tile into `host_tiles`."""
+    from ..codec.encode_orchestrator import ROUTES
+
+    img = decoded.get((t, b))
+    if img is None:
+        img = _const_unit_fill(views[t], layouts[t], b, tile_h, tile_w)
+        if img is not None:
+            ROUTES["decode", "const"] += 1
+    if img is None:
+        if t not in host_tiles:
+            host_tiles[t] = _decode_tile_blob(views[t], n_bands)
+        img = host_tiles[t][b]
+    return img
 
 
 def _const_unit_fill(view, layout, b, tile_h, tile_w):
@@ -772,15 +822,14 @@ def _const_unit_fill(view, layout, b, tile_h, tile_w):
 
 
 def decode_mosaic_device(buf: bytes, mesh: Mesh | None = None) -> np.ndarray:
-    """TPU-parallel mosaic decode: scan-free batched decodes (record
+    """Device-parallel mosaic decode: scan-free batched decodes (record
     offsets from the container's acceleration index; tiles flattened into
     one record axis, one dispatch + one fetch per micro-block group).
     Masked and edge-padded tiles stay on device via the masked fast path
     (their RLE masks parse on host, ~bytes); 16x16 and LUT tiles decode
     on device too. Only tiles without an index entry (const/empty, or v1
-    containers) fall back to the host decoder."""
-    from ..codec.orchestrator import decode_blob
-
+    containers) and tiles unfit for the batched kernel (a 16x16 record over
+    11 bits) take the per-tile path; ROUTES counts where each unit went."""
     info, views = read_mosaic(buf)
     ty, tx = info["grid"]
     h, w = info["shape"]
@@ -802,13 +851,8 @@ def decode_mosaic_device(buf: bytes, mesh: Mesh | None = None) -> np.ndarray:
         hs = min(tile_h, h - ti * tile_h)
         ws = min(tile_w, w - tj * tile_w)
         for b in range(n_bands):
-            img = decoded.get((t, b))
-            if img is None:
-                img = _const_unit_fill(views[t], layouts[t], b, tile_h, tile_w)
-            if img is None:
-                if t not in host_tiles:
-                    host_tiles[t] = _decode_tile_blob(views[t], n_bands)
-                img = host_tiles[t][b]
+            img = _unit_pixels(decoded, host_tiles, views, layouts, t, b,
+                               n_bands, tile_h, tile_w)
             out[b, ti * tile_h : ti * tile_h + hs,
                 tj * tile_w : tj * tile_w + ws] = img[:hs, :ws]
     return out if n_bands > 1 else out[0]
@@ -826,8 +870,6 @@ def decode_mosaic_region(buf: bytes, row0: int, row1: int, col0: int, col1: int,
     With device=True (default) indexed tiles decode through the batched
     device fast path; pass device=False to force the host decoder.
     Single-band mosaics return [rh, rw, D]; multi-band [nBands, rh, rw, D]."""
-    from ..codec.orchestrator import decode_blob
-
     info, views = read_mosaic(buf)
     ty, tx = info["grid"]
     h, w = info["shape"]
@@ -850,13 +892,8 @@ def decode_mosaic_region(buf: bytes, row0: int, row1: int, col0: int, col1: int,
     for t in wanted:
         ti, tj = divmod(t, tx)
         for b in range(n_bands):
-            img = decoded.get((t, b))
-            if img is None:
-                img = _const_unit_fill(views[t], layouts[t], b, tile_h, tile_w)
-            if img is None:
-                if t not in host_tiles:
-                    host_tiles[t] = _decode_tile_blob(views[t], n_bands)
-                img = host_tiles[t][b]
+            img = _unit_pixels(decoded, host_tiles, views, layouts, t, b,
+                               n_bands, tile_h, tile_w)
             if out is None:
                 out = np.zeros((n_bands, row1c - row0c, col1c - col0c,
                                 img.shape[2]), dtype=img.dtype)

@@ -19,10 +19,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-# env var alone is not enough when an accelerator plugin is installed
-# (same note as bench.py); gloo collectives make the CPU backend form a
-# true multi-process cluster, 2 local devices per process
-jax.config.update("jax_platforms", "cpu")
+# gloo collectives make the CPU backend form a true multi-process cluster,
+# 2 local devices per process
 jax.config.update("jax_cpu_collectives_implementation", "gloo")
 jax.config.update("jax_num_cpu_devices", 2)
 jax.distributed.initialize(

@@ -1,7 +1,7 @@
 """ctypes binding to the reference C++ LERC library, used as a cross-
-implementation oracle in tests (built from /root/reference into ref_build/).
+implementation oracle in tests (built from an Esri/lerc checkout into ref_build/).
 
-API shapes follow /root/reference/src/LercLib/include/Lerc_c_api.h.
+API shapes follow lerc/src/LercLib/include/Lerc_c_api.h.
 """
 from __future__ import annotations
 

@@ -188,7 +188,7 @@ def test_accelerated_decode_routing():
 
 
 def test_compute_compressed_size_matches_encode():
-    """lerc_computeCompressedSize analog (VERDICT r1 missing item 1):
+    """lerc_computeCompressedSize analog:
     exact blob size without producing the blob, across dtypes and masks."""
     import lerc_tpu
 
@@ -213,7 +213,7 @@ def test_compute_compressed_size_matches_encode():
 
 
 def test_decode_to_double():
-    """lerc_decodeToDouble analog (VERDICT r1 missing item 2): any stored
+    """lerc_decodeToDouble analog: any stored
     dtype decodes to float64, values exactly equal to the native decode."""
     import lerc_tpu
 
@@ -237,12 +237,14 @@ def test_decode_to_double():
 
 
 def test_lerc1_decode_to_dtype():
-    """VERDICT r2 missing item 7: Lerc1 output-dtype conversion with the
+    """Lerc1 output-dtype conversion with the
     reference's floor(z + 0.5) semantics (Lerc.cpp:794-842)."""
     import numpy as np
     from lerc_tpu import api
 
-    blob = open("/root/reference/testData/world.lerc1", "rb").read()
+    from . import golden
+
+    blob = golden.blob("world.lerc1")
     rv = api.decode(blob)
     assert rv[0] == 0
     f32, mask = rv[1], rv[2]
@@ -258,7 +260,7 @@ def test_lerc1_decode_to_dtype():
     rv64 = api.decode_to_dtype(blob, np.float64)
     np.testing.assert_array_equal(rv64[1][m], f32.astype(np.float64)[m])
     # Lerc2 blobs demand the stored dtype
-    l2 = open("/root/reference/testData/california_400_400_1_float.lerc2", "rb").read()
+    l2 = golden.blob("california_400_400_1_float.lerc2")
     assert api.decode_to_dtype(l2, np.float32)[0] == 0
     assert api.decode_to_dtype(l2, np.int16) == 2  # WRONG_PARAM
 

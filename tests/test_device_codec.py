@@ -412,8 +412,7 @@ def test_device_f64_masked_depth():
 
 def test_device_f64_lossless_fpl():
     """f64 lossless encodes on device via the fpl limb-pair pipeline:
-    bit-exact through the host decoder and the reference library
-    (VERDICT r1 item 5)."""
+    bit-exact through the host decoder and the reference library."""
     rng = np.random.default_rng(91)
     data = (make(np.float64, d=1) * np.pi + 1e-9 * rng.standard_normal((H, W, 1)))
     blob = encode_band_device(data.copy(), None, 0.0, verify=True)
@@ -475,7 +474,7 @@ def test_device_depth_diff_masked():
 def test_device_huffman_decode_sidecar():
     """Device-parallel Huffman DECODE via the encoder's per-group
     bit-offset sidecar: bit-exact, tamper-detected, host fallback for
-    foreign (sidecar-less) blobs (VERDICT r1 item 2)."""
+    foreign (sidecar-less) blobs."""
     rng = np.random.default_rng(77)
     h, w = 96, 96
     # smooth-ish 8-bit image so delta-Huffman wins decisively
@@ -537,7 +536,7 @@ def test_device_huffman_decode_depth3():
 
 
 def test_device_huffman_masked_decode():
-    """Masked whole-image Huffman DECODE on device (VERDICT r2 item 2):
+    """Masked whole-image Huffman DECODE on device:
     truncated-sidecar group decode + rank-space un-delta (segment pointer
     doubling over use_above links) + stride-window expansion. Bit-exact
     vs the host decoder and the reference library."""
@@ -628,8 +627,7 @@ def test_device_huffman_masked_decode_sparse_and_stripes():
 
 def test_device_fpl_decode_sidecar():
     """Device fpl f32 DECODE via the per-plane Huffman group sidecar:
-    bit-exact, tamper-detected, host fallback without the sidecar
-    (VERDICT r1 item 5)."""
+    bit-exact, tamper-detected, host fallback without the sidecar."""
     rng = np.random.default_rng(92)
     x, y = np.meshgrid(np.linspace(0, 3, 104), np.linspace(0, 2, 96))
     f = (1000 * np.exp(-((x - 1.5) ** 2 + (y - 1) ** 2))
@@ -687,7 +685,7 @@ def test_device_fpl_f64_decode_sidecar():
 
 @pytest.mark.parametrize("d,masked", [(1, False), (1, True), (3, False), (3, True)])
 def test_device_huffman_foreign_blob_decode(d, masked):
-    """VERDICT r2 item 7: device-parallel decode of FOREIGN 8-bit Huffman
+    """Device-parallel decode of FOREIGN 8-bit Huffman
     blobs (reference-encoded, no sidecar). The native lengths-only scan
     (lerc_native.cpp lerc_huffman_group_offsets) rebuilds the per-group
     bit offsets, then the normal device group decode runs. Bit-exact vs
@@ -759,7 +757,7 @@ def test_native_huffman_spec_scan_matches_serial(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_device_fpl_foreign_blob_decode(dtype):
-    """VERDICT r2 weak item 8: foreign (reference-encoded) lossless float
+    """Foreign (reference-encoded) lossless float
     blobs decode on device -- each Huffman plane's group offsets come from
     the native lengths-only scan; restore cumsums / predictor undo /
     float-transform undo stay device-parallel. Bit-exact.

@@ -1,7 +1,5 @@
 """M0 tests: Fletcher32, RLE, BitStuffer2, header parsing vs the shipped
 reference blobs and the reference library oracle."""
-import os
-
 import numpy as np
 import pytest
 
@@ -10,13 +8,7 @@ from lerc_tpu.codec.fletcher32 import fletcher32
 from lerc_tpu.codec.header import read_header, checksum_skip
 
 from . import oracle
-
-TESTDATA = "/root/reference/testData"
-
-
-def load(name):
-    with open(os.path.join(TESTDATA, name), "rb") as f:
-        return f.read()
+from .golden import blob as load
 
 
 @pytest.mark.parametrize("name", ["california_400_400_1_float.lerc2", "bluemarble_256_256_3_byte.lerc2"])

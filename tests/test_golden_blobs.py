@@ -1,39 +1,35 @@
-"""Golden tests: the three blobs shipped with the reference decode bit-exact."""
-import os
-
+"""Golden tests: the three blobs shipped with the reference decode
+bit-exact against the reference's own decode (tests/golden.py)."""
 import numpy as np
 import pytest
 
 from lerc_tpu.codec.orchestrator import decode_blob, get_lerc_info
 
-from . import oracle
-
-TESTDATA = "/root/reference/testData"
-
-pytestmark = pytest.mark.skipif(not oracle.available(), reason="reference lib not built")
+from . import golden, oracle
 
 
 @pytest.mark.parametrize(
     "name", ["california_400_400_1_float.lerc2", "bluemarble_256_256_3_byte.lerc2", "world.lerc1"]
 )
 def test_golden_decode_bit_exact(name):
-    with open(os.path.join(TESTDATA, name), "rb") as f:
-        blob = f.read()
+    blob = golden.blob(name)
     res = decode_blob(blob)
-    ref_data, ref_masks, _, _ = oracle.decode(blob)
-    assert np.array_equal(res.data, ref_data)
+    ref_data, ref_masks, exp = golden.expected(name)
+    valid = (np.ones(ref_data.shape[:3], bool) if ref_masks is None
+             else np.broadcast_to(ref_masks, ref_data.shape[:3]))
+    assert res.data.dtype == ref_data.dtype
+    assert np.array_equal(res.data[valid], ref_data[valid])
     if ref_masks is not None:
-        m = ref_masks.astype(bool)
-        assert np.array_equal(res.masks[: m.shape[0]], m)
+        assert np.array_equal(res.masks[: ref_masks.shape[0]], ref_masks)
     info = get_lerc_info(blob)
-    ref_info = oracle.blob_info(blob)
-    assert info.n_bands == ref_info["nBands"]
-    assert info.n_cols == ref_info["nCols"]
-    assert info.n_rows == ref_info["nRows"]
-    assert int(info.dt) == ref_info["dataType"]
-    assert info.num_valid_pixel == ref_info["nValidPixels"]
-    assert abs(info.z_min - ref_info["zMin"]) < 1e-9
-    assert abs(info.z_max - ref_info["zMax"]) < 1e-9
+    assert info.n_bands == exp["bands"]
+    assert info.n_cols == exp["width"]
+    assert info.n_rows == exp["height"]
+    assert int(info.dt) == exp["dtype"]
+    assert info.num_valid_pixel == int(valid[0].sum())
+    if not info.is_lerc1:
+        assert info.z_min == ref_data[valid].min()
+        assert info.z_max == ref_data[valid].max()
 
 
 @pytest.mark.parametrize(
@@ -44,11 +40,11 @@ def test_golden_reencode_roundtrip(name):
     decode with the REFERENCE library, require bit-exact pixels + masks."""
     from lerc_tpu.codec.encode_orchestrator import encode_blob
 
-    with open(os.path.join(TESTDATA, name), "rb") as f:
-        blob = f.read()
+    if not oracle.available():
+        pytest.skip("needs the reference library (ref_build/libLerc.so)")
+    blob = golden.blob(name)
     res = decode_blob(blob)
     masks = res.masks.astype(np.uint8)
-    n_masks = masks.shape[0]
     if np.all(masks == masks[0:1]):
         masks = masks[0:1]
     our_blob = encode_blob(res.data, masks, 0.0)
@@ -66,19 +62,13 @@ def test_golden_blobs_reencode_device():
     """Decode the shipped golden blobs and re-encode through the DEVICE
     encoder; the reference library must accept the new blob and decode it
     bit-exactly (lossless)."""
-    import numpy as np
-
     from lerc_tpu.codec.device_codec import encode_band_device
-    from lerc_tpu.codec.orchestrator import decode_blob
-    from . import oracle
 
     if not oracle.available():
-        import pytest
-
-        pytest.skip("reference lib not built")
+        pytest.skip("needs the reference library (ref_build/libLerc.so)")
 
     # bluemarble: 3-band uint8 -> device whole-image Huffman per band
-    blob = open(os.path.join(TESTDATA, "bluemarble_256_256_3_byte.lerc2"), "rb").read()
+    blob = golden.blob("bluemarble_256_256_3_byte.lerc2")
     res = decode_blob(blob)
     for band in range(res.data.shape[0]):
         b2 = encode_band_device(res.data[band], None, 0)
@@ -86,7 +76,7 @@ def test_golden_blobs_reencode_device():
         np.testing.assert_array_equal(ref, res.data[band, :, :, 0])
 
     # california: float32 -> device fpl lossless re-encode of the decoded DEM
-    blob = open(os.path.join(TESTDATA, "california_400_400_1_float.lerc2"), "rb").read()
+    blob = golden.blob("california_400_400_1_float.lerc2")
     res = decode_blob(blob)
     data = res.data[0].copy()
     data[~res.masks[0]] = 0  # device encoder is all-valid; mask region zeroed

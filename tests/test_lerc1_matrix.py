@@ -1,4 +1,4 @@
-"""Randomized Lerc1 corpus matrix (VERDICT r4 missing #2): the test-only
+"""Randomized Lerc1 corpus matrix: the test-only
 writer (tests/lerc1_writer.py) generates fresh CntZImage blobs across cnt
 styles, tile grids, masks and bands; every blob must decode identically
 through the reference C++ library, our host decoder, and both binding

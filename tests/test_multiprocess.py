@@ -1,4 +1,4 @@
-"""True multi-process distributed mosaic test (VERDICT r3 missing #2).
+"""True multi-process distributed mosaic test.
 
 Everything else in the suite is one process with 8 virtual devices, where
 every shard is addressable and process_allgather is a no-op -- the
@@ -47,8 +47,10 @@ def test_two_process_mosaic_byte_identical(tmp_path):
 
     port = _free_port()
     out = tmp_path / "mp_container.bin"
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    # the workers stay on the CPU through their environment, so a GPU host
+    # never has two processes opening the card
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["JAX_PLATFORMS"] = "cpu"
     procs = [
         subprocess.Popen(
             [sys.executable, os.path.join(REPO, "tests", "mp_worker.py"),

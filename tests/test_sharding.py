@@ -61,7 +61,7 @@ def test_mosaic_masked_and_ragged_edges(monkeypatch):
     assert err <= 0.01 * 1.01
 
     # masked and edge-padded tiles stay on the device fast path: zero
-    # host-decoded tiles (VERDICT r1 item 4)
+    # host-decoded tiles
     import lerc_tpu.codec.orchestrator as orch
 
     host_calls = []
@@ -88,7 +88,7 @@ def test_mosaic_global_ranges():
 
 
 def test_sharded_tiles_match_single_device_sizes():
-    """Full-strength sharded encode (VERDICT r1 item 7): per-tile blob
+    """Full-strength sharded encode: per-tile blob
     payloads match the single-device encoder (LUT on, 16x16 retrial) on
     the same tiles."""
     import jax.numpy as jnp
@@ -133,8 +133,7 @@ def test_sharded_tiles_match_single_device_sizes():
 def test_mosaic_16x16_tiles_device_decode(monkeypatch):
     """Tiles that pick the 16x16 retrial carry micro_block_size=16, ship
     their 16x16 record index, and decode on the DEVICE fast path -- zero
-    host fallbacks (VERDICT r2 item 3: try_16 no longer trades away
-    device decodability)."""
+    host fallbacks."""
     mesh = make_mesh(4)
     h = w = 64
     # constant raster with binary-noise quads: noise blocks stuff at 1 bpp
@@ -176,8 +175,7 @@ def test_mosaic_16x16_tiles_device_decode(monkeypatch):
 
 def test_mosaic_lut_tiles_device_decode(monkeypatch):
     """Blocky few-valued rasters produce LUT records; the batched device
-    fast path decodes them via the chained one-hot extraction
-    (VERDICT r2 item 3, LUT half)."""
+    fast path decodes them via the chained one-hot extraction."""
     rng = np.random.default_rng(11)
     h = w = 64
     base = rng.integers(0, 40, (8, 8)).astype(np.float32) * 500
@@ -208,8 +206,7 @@ def test_mosaic_lut_tiles_device_decode(monkeypatch):
 
 def test_mosaic_region_decode(monkeypatch):
     """Random access: decode only the tiles covering a pixel window --
-    on the batched device path by default, matching the host path
-    (VERDICT r2 weak item 4)."""
+    on the batched device path by default, matching the host path."""
     mesh = make_mesh(4)
     h, w = 96, 96
     data = _raster(h, w, seed=9)
@@ -260,7 +257,7 @@ def test_mosaic_streamed_encode_matches():
 
 
 def test_mosaic_multiband_device_decode(monkeypatch):
-    """Multi-band mosaic (VERDICT r2 item 6): per-tile blobs are standard
+    """Multi-band mosaic: per-tile blobs are standard
     multi-band LERC blobs (band concat + mask-reuse flag, Lerc.cpp:
     130-176,717-741) the reference decodes with correct per-band masks;
     the batched device path decodes every (tile, band) unit."""

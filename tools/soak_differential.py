@@ -12,7 +12,7 @@ depth>1 Huffman live grid missing its group padding.
 import sys, time
 import os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import jax; jax.config.update("jax_platforms", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")  # oracle soak: CPU unless asked
 import numpy as np
 from tests import oracle
 from lerc_tpu.codec import device_codec

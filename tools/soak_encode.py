@@ -10,7 +10,7 @@ blob to /tmp/soak_enc_bad.npy and stops.
 """
 import sys, time, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import jax; jax.config.update("jax_platforms", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")  # oracle soak: CPU unless asked
 import numpy as np
 from tests import oracle
 from lerc_tpu.codec import device_codec
